@@ -1,9 +1,9 @@
-"""mappy_rs_tpu — a TPU-native minimap2-class aligner.
+"""mappy_rs_tpu — an accelerator-native minimap2-class aligner.
 
 A from-scratch re-design of the capabilities of mappy-rs (a
 multi-threaded minimap2 binding for Python) with the entire alignment
 engine — minimizer sketching, index lookup, seed chaining, banded
-affine-gap extension — implemented as JAX/XLA/Pallas compute on TPU
+affine-gap extension — implemented as JAX/XLA compute on the accelerator
 instead of FFI calls into the minimap2 C core.
 
 Public surface (drop-in for `mappy_rs`, which is itself a drop-in for

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import enum
 import os
-import sys
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -336,28 +335,22 @@ class Aligner:
 
     def probe_front_end(self, n: int = 10) -> list:
         """Steady-state device front-end seconds per batch (device
-        execution + link, no host stages): re-dispatches the last
-        batch n times, blocking on each.  In multi-process mode the
-        probe runs in a warm child.  Feeds chip-duty estimates."""
-        if self._procs is not None:
-            return self._procs.probe_front_end(n)
+        execution + transfer, no host stages): re-dispatches the last
+        batch n times, blocking on each.  The device front end always
+        runs in this process's engine."""
         return self._engine.probe_front_end(n)
 
     def front_end_roofline(self) -> dict:
-        """Algorithmic int-op / HBM-byte cost model of one front-end
-        batch (SURVEY §5 roofline accounting); see
-        AlignmentEngine.front_end_roofline.  In multi-process mode the
-        shapes come from a warm child."""
-        if self._procs is not None:
-            return self._procs.front_end_roofline()
+        """Algorithmic int-op / byte cost model of one front-end batch
+        (SURVEY §5 roofline accounting); see
+        AlignmentEngine.front_end_roofline."""
         return self._engine.front_end_roofline()
 
     def reset_metrics(self) -> None:
         """Zero all engine counters/timers, including every worker
         process's.  Call after warmup() to make subsequent metrics
         reflect STEADY-STATE mapping only — without this, stage times
-        include each child's one-time compile-cache load and device
-        index upload and are useless for optimization decisions."""
+        include one-time compile and device index upload costs."""
         self._engine.metrics.reset()
         if self._procs is not None:
             self._procs.reset_metrics()
@@ -442,11 +435,14 @@ class Aligner:
         """Spin up the persistent worker pool.
 
         With ``config.worker_processes > 0`` (or MAPPY_RS_TPU_PROCS),
-        the pool's workers become proxies to that many child mapping
-        processes (runtime/procpool.py) — same queueing contract, but
-        the per-read Python glue and the device clients scale past the
-        GIL.  Falls back to in-process threads if the children fail to
-        start."""
+        the pool's workers become proxies to that many child processes
+        — same queueing contract, but the per-read Python glue scales
+        past the GIL.  The front end picks the topology: the device
+        front end keeps the only device client in this process and
+        hands the post-chain tail to jax-free children
+        (runtime/devowner.py); the CPU front end runs the full CPU
+        pipeline in each child (runtime/procpool.py).  Raises
+        RuntimeError if the children fail to start."""
         self.n_threads = n_threads
         if self._pool is not None:
             self._pool.shutdown()
@@ -458,55 +454,37 @@ class Aligner:
             return
         n_procs = self._config.worker_processes
         if n_procs > 0:
+            if self._config.front_end_backend == "cpu":
+                from .runtime.procpool import ProcMapper
+
+                procs = ProcMapper(
+                    n_procs, self._index, self._map_opt, self._config
+                )
+            else:
+                from .runtime.devowner import DevOwnerMapper
+
+                procs = DevOwnerMapper(
+                    n_procs, self._engine, self._index, self._map_opt,
+                    self._config,
+                )
             try:
-                if self._config.topology == "device_owner":
-                    from .runtime.devowner import DevOwnerMapper
-
-                    procs = DevOwnerMapper(
-                        n_procs,
-                        self._engine,
-                        self._index,
-                        self._map_opt,
-                        self._config,
-                    )
-                else:
-                    from .runtime.procpool import (
-                        ProcMapper,
-                        resolved_platforms,
-                    )
-
-                    procs = ProcMapper(
-                        n_procs,
-                        self._index,
-                        self._map_opt,
-                        self._config,
-                        platforms=resolved_platforms(),
-                    )
-                if not procs.wait_ready():
-                    procs.shutdown()
-                    procs = None
-            except Exception as exc:  # noqa: BLE001 — degrade, don't die
-                print(
-                    f"mappy_rs_tpu: worker processes unavailable ({exc}); "
-                    f"falling back to threads",
-                    file=sys.stderr,
-                )
-                procs = None
-            if procs is not None:
-                self._procs = procs
-                self._pool = WorkerPool(
-                    n_threads,
-                    [procs.map_fn(i) for i in range(n_threads)],
-                    batch_size=self._config.proc_chunk,
-                )
-                return
+                procs.wait_ready()
+            except BaseException:
+                procs.shutdown()
+                raise
+            self._procs = procs
+            self._pool = WorkerPool(
+                n_threads,
+                [procs.map_fn(i) for i in range(n_threads)],
+                batch_size=self._config.proc_chunk,
+            )
+            return
         self._pool = WorkerPool(
             n_threads,
             self._threaded_map,
-            # one device chunk per drain: measured better than 2x
-            # (intra-call prefetch makes the host stages bursty;
-            # cross-worker overlap already keeps the chip fed —
-            # tpu_trials/ab_prefetch.py: ~4000 vs ~3400 reads/s)
+            # one device chunk per drain (intra-call prefetch makes
+            # the host stages bursty; cross-worker overlap already
+            # keeps the device fed)
             batch_size=self._config.device_batch_size,
         )
 
@@ -571,6 +549,8 @@ class Aligner:
         self._mesh = make_mesh(n_data, n_index)
         self._shards_np = shard_index_by_key_range(self._index, n_index)
         self._sharded_steps: Dict[int, Any] = {}
+        # device shards are placed for one mesh: re-place on next use
+        self.__dict__.pop("_shards_dev", None)
         self._n_data = n_data
         self._n_index = n_index
 

@@ -1,4 +1,4 @@
-"""MinimizerIndex: the TPU-resident reference index.
+"""MinimizerIndex: the device-resident reference index.
 
 Equivalent of the C core's ``mm_idx_t`` + its khash bucket table
 (SURVEY.md §2b N3), redesigned for XLA: instead of 2^14 pointer-chasing
@@ -83,8 +83,7 @@ class DeviceIndex:
     # is fetched by ONE two-row gather; hash_val maps the matched slot
     # back to the sorted-key index (for offcnt).  Replaces the bucket
     # directory + ranged binary search (a ~7-op dependent gather chain)
-    # with 2 gathers — the chain was the device front end's second-
-    # biggest cost (tpu_trials/ablate_lookup.py).
+    # with 2 gathers.
     hash_rows: object = None  # uint32 [T/128 + 1, 128]
     hash_val: object = None   # int32  [T + 128]
     hash_bits: int = 0        # T = 2^hash_bits

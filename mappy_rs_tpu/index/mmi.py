@@ -1,6 +1,6 @@
 """Reader/writer for minimap2 ``.mmi`` index files.
 
-TPU-build equivalent of ``mm_idx_reader_open/read/close`` +
+This build's equivalent of ``mm_idx_reader_open/read/close`` +
 ``mm_idx_load`` used by the reference's constructor
 (/root/reference/src/lib.rs:395-413, SURVEY.md §2b N2).  Instead of
 reconstructing the C core's bucketed khash, the on-disk data is

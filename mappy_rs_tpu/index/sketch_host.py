@@ -22,7 +22,7 @@ published algorithm:
 Each emitted minimizer is ``(key, pos_end, strand)`` where ``pos_end``
 is the position of the k-mer's LAST base and strand is 0/1.
 
-The TPU-native vectorised version lives in ``ops/sketch.py`` and is
+The vectorised device version lives in ``ops/sketch.py`` and is
 tested for set-equality against this oracle and against the contents of
 the reference's prebuilt ``resources/test/test.mmi``.
 """

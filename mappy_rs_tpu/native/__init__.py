@@ -3,13 +3,17 @@
 The reference's runtime layers are native (Rust + minimap2 C); here the
 device does the O(n) compute and this module supplies native host inner
 loops: traceback walks over the packed direction tensor, ASCII base
-encoding, CIGAR stats.  If the shared library is absent it is built
-once with `make`; if that fails, callers fall back to the numpy/python
-implementations in ops/cigar.py (same results, slower).
+encoding, CIGAR stats.  The shared library is (re)built from the
+sources beside this file with ``$CXX`` (default ``g++``) when it is
+absent or older than any source — always on the host that loads it, so
+``-march=native`` never carries one machine's ISA to another.  If the
+build fails, callers fall back to the numpy/python implementations in
+ops/cigar.py (same results, slower).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import List, Optional, Tuple
@@ -18,9 +22,59 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "libmappy_native.so")
+SOURCES = ("mappy_native.cc", "front_end.cc", "post_chain.cc")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def compile_command(out: str) -> List[str]:
+    """The compiler invocation (same flags as setup.py's wheel build;
+    MAPPY_NATIVE_ARCH overrides -march)."""
+    arch = os.environ.get("MAPPY_NATIVE_ARCH", "native")
+    return (
+        [os.environ.get("CXX", "g++"), "-O3", f"-march={arch}", "-fPIC",
+         "-shared", "-std=c++17", "-Wall"]
+        + [os.path.join(_DIR, s) for s in SOURCES]
+        + ["-o", out]
+    )
+
+
+def is_stale(so: str = _SO) -> bool:
+    """True when the library is absent or older than any source."""
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(
+        os.path.getmtime(os.path.join(_DIR, s)) > built for s in SOURCES
+    )
+
+
+def build(so: str = _SO) -> None:
+    """Compile the library into `so`; raises CalledProcessError (with
+    the compiler's stderr) on failure.  The result appears atomically:
+    concurrent loaders never see a half-written file."""
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            compile_command(tmp), check=True, capture_output=True,
+            timeout=600,
+        )
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def ensure_built(so: str = _SO) -> None:
+    """Build `so` if it is stale; one process builds while concurrent
+    ones wait on a lock file and then find it fresh."""
+    if not is_stale(so):
+        return
+    with open(so + ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if is_stale(so):
+            build(so)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -28,15 +82,12 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(
-                ["make", "-C", _DIR, "-s"],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
+    try:
+        ensure_built()
+    except (OSError, subprocess.SubprocessError):
+        # no compiler here (e.g. an installed wheel): a prebuilt
+        # library, if any, is still loaded below
+        if not os.path.exists(_SO):
             return None
     try:
         lib = ctypes.CDLL(_SO)
@@ -314,7 +365,7 @@ def backtrack_compact_batch(
     """Greedy chain backtrack over downloaded f/p arrays (C++).
 
     Returns [B, K, 9+2*seg_cuts] compact chain rows (the
-    backtrack_pallas layout), or None if unavailable."""
+    ops/regions.regions_from_compact layout), or None if unavailable."""
     lib = _load()
     if lib is None:
         return None
@@ -614,8 +665,9 @@ def front_end_batch(
     """CPU front end: sketch+lookup+chain+backtrack for a read batch.
 
     Returns (chains [R, K, 9+2*seg_cuts] int32 in the
-    backtrack_pallas layout, rep_len [R] int32, n_anchors [R] int32),
-    or None if the native library is unavailable."""
+    ops/regions.regions_from_compact layout, rep_len [R] int32,
+    n_anchors [R] int32), or None if the native library is
+    unavailable."""
     lib = _load()
     if lib is None:
         return None

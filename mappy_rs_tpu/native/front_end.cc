@@ -2,7 +2,7 @@
 // backtrack, one call per read batch.
 //
 // Two roles in the framework (SURVEY.md §2b N7-N9):
-//  1. the production front end when no TPU is attached (the reference
+//  1. the production front end when no accelerator is attached (the reference
 //     is CPU-only, so a complete CPU path is part of feature parity);
 //  2. the measured in-environment baseline for bench.py: a
 //     minimap2-class CPU aligner at N threads on the same workload,
@@ -16,8 +16,8 @@
 //    configurable predecessor window (max_iter) and the sorted-rpos
 //    distance break;
 //  * backtrack: mm_chain_backtrack greedy (regions.py semantics) with
-//    the same compact output layout as ops/backtrack_pallas.py, so the
-//    Python pipeline consumes either source identically.
+//    the compact output layout of ops/regions.py regions_from_compact,
+//    so the Python pipeline consumes either source identically.
 //
 // GIL note: called through ctypes, so Python worker threads run these
 // loops in parallel.
@@ -461,7 +461,7 @@ int64_t sketch_contig(const uint8_t* codes, int64_t L, int k, int w,
 //   positions uint64 [np]  rid<<32 | pos_end<<1 | strand
 // Reads: concatenated 0..4 codes with int64 [R+1] offsets.
 // Output: per read, chains_out int32 [R, K, 9+2*seg_cuts] in the
-// ops/backtrack_pallas.py layout (-1-filled empty slots), plus
+// ops/regions.py regions_from_compact layout (-1-filled empty slots), plus
 // rep_len int32 [R] and n_anchors int32 [R].
 void front_end_batch(
     const uint64_t* keys, const uint64_t* key_off, const uint64_t* positions,
@@ -648,11 +648,11 @@ void front_end_batch(
 // Greedy chain backtrack over the DOWNLOADED device f/p arrays
 // (mm_chain_backtrack, same semantics as the in-file walk above and as
 // ops/regions.py backtrack_chains + gen_regions fused): replaces the
-// per-read Python walk on the TPU path's host side.
+// per-read Python walk on the device path's host side.
 //   meta  int32 [B,A]: rev<<30 | valid<<29 | span<<21 | rid
 //   rpos, qpos, f, p  int32 [B,A]
 // Output: chains_out int32 [B, K, 9+2*seg_cuts], -1-filled, same
-// layout as front_end_batch / ops/backtrack_pallas.py.
+// layout as front_end_batch (ops/regions.py regions_from_compact).
 void backtrack_compact_batch(const int32_t* meta, const int32_t* rpos,
                              const int32_t* qpos, const int32_t* f,
                              const int32_t* p, int32_t B, int32_t A,

@@ -1,6 +1,6 @@
 // Native host-side inner loops for mappy_rs_tpu.
 //
-// TPU-native counterpart of the native runtime the reference gets from
+// Counterpart of the native runtime the reference gets from
 // Rust/C (SURVEY.md §2b): the device produces packed traceback
 // direction bytes (ops/extend.py); the strictly-sequential O(path)
 // walks, base encoding and tag generation run here instead of Python.
@@ -1345,12 +1345,11 @@ extern "C" {
 
 // BANDED dual-affine DP + traceback, host-side, same static
 // anti-diagonal band as the device kernels (lane d of diagonal s is
-// row i = band_lo(s)+d).  Bit-compatible with ops/extend.py /
-// extend_pallas.py: same borders, precedence, continue flags, and
+// row i = band_lo(s)+d).  Bit-compatible with ops/extend.py: same
+// borders, precedence, continue flags, and
 // tracker tie rules (smallest (s, i) among equals for best cell,
 // smallest s for the last-row tracker).  Production extension engine
-// (the Mosaic device kernel is measured ~2x slower at J=256 and would
-// contend with the front end for the chip — see CONTRIBUTING.md).
+// (device extension would contend with the front end for the device).
 // Band fill dispatches to an AVX-512BW int16 path when the job's
 // score range provably fits (simd_fits); scalar otherwise.
 // One banded extension job: band fill (AVX-512 int16 when the

@@ -1,6 +1,6 @@
 """Anchor chaining DP — lock-step windowed recurrence on device.
 
-TPU-native equivalent of the C core's ``mm_chain_dp`` (SURVEY.md §2b
+Device equivalent of the C core's ``mm_chain_dp`` (SURVEY.md §2b
 N9).  The reference reaches it through every ``.map()`` call; here a
 whole batch of reads runs the recurrence lock-step: one sequential
 ``lax.scan`` over anchor slots, with the predecessor search over a
@@ -189,7 +189,7 @@ def _pair_scores_grid(cur, win, p: ChainParams):
 
 @partial(jax.jit, static_argnames=("block",))
 def chain_scores_block(anchors: dict, params: ChainParams, block: int = 32):
-    """Block max-plus chaining DP — the TPU-fast formulation.
+    """Block max-plus chaining DP — the production device formulation.
 
     Equivalent recurrence to chain_scores but restructured so the
     sequential dimension is anchor BLOCKS of size C, not anchors:
@@ -210,8 +210,8 @@ def chain_scores_block(anchors: dict, params: ChainParams, block: int = 32):
     the same DP, like minimap2's max_chain_iter.
 
     NB: deliberately avoids dynamic_slice-in-scan and 2-D fancy
-    gathers, which compile pathologically slowly on the TPU backend;
-    everything here is static reshapes, broadcasts and reductions.
+    gathers; everything here is static reshapes, broadcasts and
+    reductions, and each scan step is a few fused [B, 2C, C] ops.
     """
     rev, rid = anchors["rev"], anchors["rid"]
     rpos, qpos = anchors["rpos"], anchors["qpos"]

@@ -1,8 +1,8 @@
 """Banded dual-affine-gap alignment DP — the hot kernel (ksw2 class).
 
-TPU-native equivalent of ``ksw_extz2_sse`` (SURVEY.md §2b N10), which
+Device equivalent of ``ksw_extz2_sse`` (SURVEY.md §2b N10), which
 the reference triggers on every map call by forcing MM_F_CIGAR
-(/root/reference/src/lib.rs:338-339).  Redesign for the VPU:
+(/root/reference/src/lib.rs:338-339).  Redesign for a vector machine:
 
 - the DP sweeps ANTI-DIAGONALS instead of rows: every in-diagonal
   dependency disappears (up/left come from diag s-1, diagonal from

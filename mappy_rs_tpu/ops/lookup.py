@@ -1,6 +1,6 @@
 """Seed lookup + anchor collection — vectorized gather kernels.
 
-TPU-native replacement for ``mm_idx_get`` + ``collect_seed_hits``
+Device replacement for ``mm_idx_get`` + ``collect_seed_hits``
 (SURVEY.md §2b N8): query minimizers are matched against the index's
 sorted key arrays with a batched branchless binary search (log2(n)
 rounds of gathers — XLA turns each round into one HBM gather), then
@@ -168,9 +168,9 @@ def _slot_sources(prefix, cnt, n_slots: int):
 
     Scatter-then-cummax formulation: scatter each nonempty minimizer's
     index at its START slot, then a forward running max fills its
-    range.  One scatter + one cumulative max — measured 2.4x faster on
-    TPU than the 9-round binary `_searchsorted_rows` (the rounds are a
-    sequentially dependent chain of 2-D gathers; trial_lookup2.py)."""
+    range.  One scatter + one cumulative max in place of the 9-round
+    binary `_searchsorted_rows` (whose rounds are a sequentially
+    dependent chain of 2-D gathers)."""
     B, M = cnt.shape
     starts = prefix[:, :-1]
     m_iota = jnp.broadcast_to(jnp.arange(M, dtype=_I32)[None, :], (B, M))
@@ -339,8 +339,7 @@ def probe_index(
                 b_u = (q_lo >> _U32(s)) | (q_hi << _U32(32 - s))
             b = jnp.minimum(b_u, _U32((1 << bucket_bits) - 1)).astype(_I32)
             # ONE gather for both bucket bounds (adjacent directory
-            # slots; separate bucket_start[b] / [b+1] gathers each pay
-            # the full per-op gather cost on TPU)
+            # slots) instead of separate bucket_start[b] / [b+1] gathers
             bs2 = bucket_start[b[:, :, None] + jnp.arange(2, dtype=_I32)]
             idx = _lower_bound_2key_ranged(
                 key_hi, key_lo, q_hi, q_lo,
@@ -411,7 +410,7 @@ def filter_counts(
         # query-side repeat filter (mm_seed_mz_flt analogue): drop
         # minimizers over-represented WITHIN the read itself.
         # O(M log M) sort-and-count (the naive [B,M,M] equality
-        # broadcast is an O(M^2) VMEM/compile hazard on long buckets):
+        # broadcast is an O(M^2) memory/compile hazard on long buckets):
         # sort (hi, lo) per read, measure each equal-run's length, then
         # unsort the run lengths back to slot order.
         slot_valid = mins["pos"] >= 0
@@ -468,8 +467,7 @@ def expand_anchors(mins, qlens, cnt, off, pos_rp, max_anchors, span):
     rows = jnp.arange(B, dtype=_I32)[:, None]
     a_valid = slots < n_anchors[:, None]
     # per-minimizer metadata consumed at anchor slots, PACKED into two
-    # words so one row-gather fetches everything (each extra stacked
-    # word costs real gather time on TPU — tpu_trials/ablate_lookup.py):
+    # words so one row-gather fetches everything:
     #   doff = off - prefix  (pos_idx = slot + doff[src])
     #   pss  = pos<<9 | span<<1 | strand  (pos < 2^22 — device bucket
     #          lengths are orders of magnitude below; span < 256 always)

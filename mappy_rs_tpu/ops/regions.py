@@ -1,7 +1,7 @@
 """Chain backtracking, region generation, primary marking, mapq.
 
 Host-side O(result-size) stages between the device chaining DP and the
-device extension DP — the TPU-build equivalents of the C core's
+device extension DP — this build's equivalents of the C core's
 ``mm_chain_backtrack`` (N9 tail), ``mm_gen_regs``/``mm_reg_set_coor``,
 ``mm_set_parent``/``mm_select_sub`` (N11) and ``mm_set_mapq``
 (SURVEY.md §2b).  All are cheap linear walks over at most a few
@@ -146,9 +146,12 @@ def gen_regions(
 def regions_from_compact(
     rows: np.ndarray, qlen: int, default_span: int
 ) -> List[Region]:
-    """gen_regions over the device backtrack kernel's compact chain
-    table (ops/backtrack_pallas.py field layout): one [K, 9+2*cuts]
-    int32 block per read; empty slots have score < 0.  The sampled
+    """gen_regions over the compact chain table the native backtracks
+    emit (native/front_end.cc): one [K, 9+2*cuts] int32 block per
+    read; empty slots have score < 0.  Row layout: 0 score, 1 cnt,
+    2 rev, 3 rid, 4 rpos_first, 5 rpos_last, 6 qpos_first,
+    7 qpos_last, 8 span_first, then (qpos, rpos) cut pairs in
+    end->start order, -1 padded.  The sampled
     anchors (first, recorded cuts, last) are exactly what
     _mid_segments needs — interior cuts are >= SEG_LEN apart by
     construction."""

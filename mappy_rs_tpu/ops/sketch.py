@@ -1,15 +1,15 @@
-"""Vectorized (k,w) canonical minimizer sketch — TPU compute path.
+"""Vectorized (k,w) canonical minimizer sketch — device compute path.
 
-TPU-native replacement for the per-read scalar sketch the reference
+Device replacement for the per-read scalar sketch the reference
 reaches through FFI on every map call (SURVEY.md §2b N7).  Instead of a
 rolling ring buffer, the whole batch of reads is sketched at once as a
-dense [B, L] computation on the VPU:
+dense [B, L] elementwise computation:
 
 - k-mer integers are assembled from k static shifted views (no scan —
   each base occupies a disjoint 2-bit slot, so OR-accumulation maps to
   pure elementwise ops);
 - 64-bit hash/compare arithmetic runs on (hi, lo) uint32 pairs
-  (utils/u64.py) since TPUs have no fast 64-bit integer path;
+  (utils/u64.py), so the graph needs no 64-bit integer mode;
 - the w-window minimum is a static cascade of w-1 shifted pairwise mins;
 - the emission rule is evaluated as a mask.  The scalar algorithm's
   ring-buffer control flow (including its tie quirks) reduces to five

@@ -1,6 +1,6 @@
 """Splice-aware alignment DP (intron state) — host oracle + tables.
 
-TPU-build equivalent of the ksw_exts2 splice model behind minimap2's
+This build's equivalent of the ksw_exts2 splice model behind minimap2's
 MM_F_SPLICE presets, which the reference exposes through
 ``mm_set_opt("splice")`` (/root/reference/src/lib.rs:334-337).  The
 scoring model:

@@ -1,7 +1,7 @@
 """Multi-chip execution: device meshes, index sharding, collectives.
 
 The reference's only parallelism is n OS threads over a shared
-read-only index (SURVEY.md §2c).  The TPU-native scaling story
+read-only index (SURVEY.md §2c).  The scaling story here
 replaces that with a 2-D `jax.sharding.Mesh`:
 
   axis "data"  — reads are data-parallel (the map_batch analogue);
@@ -11,8 +11,8 @@ replaces that with a 2-D `jax.sharding.Mesh`:
 
 Each device looks its reads' minimizers up in its local key-range
 shard, then per-shard anchors are merged with `jax.lax.all_gather`
-over the "index" axis (ICI collective) and re-sorted before chaining —
-exactly the all-gather-hit-merge design from the north star.  Chaining
+over the "index" axis (a collective inside the host) and re-sorted
+before chaining — exactly the all-gather-hit-merge design from the north star.  Chaining
 and score-only extension then run data-parallel.
 
 `build_sharded_map_step` returns a jitted shard_map'd function that the
@@ -49,14 +49,14 @@ def make_mesh(
 
     Multi-host layout rule: the ONLY cross-device collectives in the
     sharded map step ride the "index" axis (anchor all_gather + the
-    extension pmax), so "index" must stay INSIDE a host (ICI) and
-    "data" can span hosts (nothing crosses it, so DCN carries zero
-    aligner traffic).  `jax.devices()` under `jax.distributed` lists
-    all global devices grouped by process, and this reshape puts
-    mesh-adjacent devices along "index" — i.e. the DCN-safe layout
+    extension pmax), so "index" must stay INSIDE a host (NVLink, every
+    card reaches every other at the same rate) and "data" can span
+    hosts (nothing crosses it, so the network between hosts carries
+    zero aligner traffic).  `jax.devices()` under `jax.distributed`
+    lists all global devices grouped by process, and this reshape puts
+    mesh-adjacent devices along "index" — i.e. the host-local layout
     falls out of device order as long as n_index divides the per-host
-    chip count.  Pass `devices` to override (e.g. a torus-aware
-    `mesh_utils.create_device_mesh`)."""
+    card count.  Pass `devices` to override."""
     if devices is None:
         devices = jax.devices()
     devices = np.asarray(devices[: n_data * n_index]).reshape(
@@ -228,7 +228,7 @@ def build_sharded_map_step(
             mins, lens, key_hi, key_lo, offcnt, pos_rp,
             n_keys, jnp.int32(mid_occ), A_loc, k,
         )
-        # merge per-shard anchors: all-gather over the index axis (ICI)
+        # merge per-shard anchors: all-gather over the index axis
         merged = {}
         for name in ("rev", "rid", "rpos", "qpos"):
             g = jax.lax.all_gather(loc[name], "index")  # [n_idx, B, A]
@@ -275,7 +275,7 @@ def build_sharded_map_step(
         # "index" peer of a data row; only the peer whose CONTIG-RANGE
         # reference shard contains the best chain's contig computes a
         # real extension, and the two scalars per read merge with a
-        # pmax over "index" (tiny ICI/DCN traffic instead of a
+        # pmax over "index" (tiny collective traffic instead of a
         # replicated reference).  All addressing is shard-local int32:
         # owner = rid2shard[rid], window start = loc_off[rid] + the
         # per-contig diagonal — no concatenated-reference coordinate

@@ -5,8 +5,9 @@ The reference's only parallelism is one process with n OS threads
 decision step (parallel/mesh.py build_sharded_map_step) is
 multi-host-ready by LAYOUT: the only cross-device collectives (anchor
 all_gather + the extension pmax) ride the "index" mesh axis, so
-packing "index" inside each host keeps every collective on ICI and
-DCN carries zero aligner traffic.  This module supplies the process
+packing "index" inside each host keeps every collective on the
+host's own links (NVLink) and the network between hosts carries zero
+aligner traffic.  This module supplies the process
 plumbing around that design:
 
   init_distributed()  — jax.distributed bring-up (one call per process)
@@ -21,8 +22,9 @@ plumbing around that design:
 Actually EXECUTED multi-process in tests/test_multihost.py: two OS
 processes x 4 CPU devices over the Gloo fabric run the sharded
 decision step and must produce bitwise-identical results to a single
-8-device process.  On a real TPU pod the same code paths ride
-ICI + DCN; nothing here is CPU-specific.
+8-device process.  On GPU hosts the same code paths ride NVLink
+within a host and the network between hosts; nothing here is
+CPU-specific.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ def make_global_mesh(n_index: int = 1) -> jax.sharding.Mesh:
     """(data, index) mesh over every device of every process.
 
     "index" must divide the per-process device count so each index
-    group stays inside one host (the DCN-zero layout rule from
+    group stays inside one host (the host-local layout rule from
     parallel/mesh.make_mesh); "data" then spans hosts.
     """
     n_local = len(jax.local_devices())
@@ -67,7 +69,7 @@ def make_global_mesh(n_index: int = 1) -> jax.sharding.Mesh:
     if n_index > 1 and n_local % n_index != 0:
         raise ValueError(
             f"n_index={n_index} must divide the per-host device count "
-            f"{n_local} so index-axis collectives stay on ICI"
+            f"{n_local} so index-axis collectives stay inside a host"
         )
     return make_mesh(n_total // n_index, n_index)
 

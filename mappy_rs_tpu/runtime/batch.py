@@ -7,7 +7,7 @@ Python iterator out of submission order, Done-pill batch termination
 and an epoch barrier so one pool serves many successive map_batch
 calls (/root/reference/src/lib.rs:535-636, 768-906, 922-992).
 
-The TPU twist: where a reference worker maps ONE read per pop, a worker
+The accelerator twist: where a reference worker maps ONE read per pop, a worker
 here drains up to ``device_batch_size`` reads per pop and maps them as
 one lock-step device batch — the queueing contract (capacities,
 back-off, error text, out-of-order streaming) is preserved exactly.

@@ -1,38 +1,30 @@
 """Device-owner topology: ONE device front-end pipeline (in the parent
 process), N jax-free post-chain worker processes.
 
-Why: the round-4 production topology gave every worker process its own
-TPU client, so each child re-uploaded the full device index (363 MB at
-32 Mbp, 1.36 GB at 300 Mbp — VERDICT r5 #5: upload serialization caps
-worker scaling and multiplies HBM; hg38-scale indexes cannot be
-replicated per child at all), paid its own compile-cache load, and
-competed with five other clients for the chip's dispatch queue
-(VERDICT r5 #2: 2.5 ms/batch dispatch bubble, chip 43% busy).
-
-Here the PARENT owns the only TPU client: proxy threads submit
+Why: a JAX process reserves most of the accelerator's memory when it
+first touches it, so a second process that opens the same card fails.
+Here the PARENT owns the only device client: proxy threads submit
 front-end batches through the shared engine (its jit caches and
 metrics are thread-safe), collect compact chains, and hand the
 device-independent tail — extension, finalize, cs/MD, wire-format
-packing — to child processes that never import a TPU client.  One
-index upload, one compile-cache load, one deep dispatch queue; the
-children spawn in ~1 s (no jax init) and scale the post-chain C++
-across cores.
+packing — to child processes pinned to the CPU platform.  One index
+upload, one compile, one deep dispatch queue; the children spawn in
+about a second and scale the post-chain C++ across cores.
 
-The mapped results are bit-identical to the classic topology: the
+The mapped results are bit-identical to the single-process path: the
 children run the same AlignmentEngine.post_chain_packed over the same
 compact chains the single-process path produces
 (tests/test_devowner.py).
 
 Reference analogue: threads sharing one C index
 (/root/reference/src/lib.rs:545) — this is the process-scaled version
-with the index shared through BOTH the device (one HBM copy) and the
-host (mmap'd pages, index/share.py).
+with the index shared through BOTH the device (one device copy) and
+the host (mmap'd pages, index/share.py).
 """
 from __future__ import annotations
 
 import atexit
 import multiprocessing as mp
-import os
 import queue
 import shutil
 import tempfile
@@ -41,27 +33,20 @@ from typing import Callable, Dict, List
 
 import numpy as np
 
-from .procpool import _Child
+from .procpool import _Child, child_env, child_info, wait_children
 
 
 def _worker_main(conn, idx_dir: str, map_opt, cfg) -> None:
     """Post-chain worker process: compact chains in, packed wire
-    blocks out.  Never creates a TPU client (platforms pinned to cpu;
-    no device code runs here)."""
+    blocks out.  Never opens the accelerator (started with
+    JAX_PLATFORMS=cpu, procpool.CHILD_ENV; no device code runs here)."""
     try:
-        try:
-            import jax
-
-            jax.config.update("jax_platforms", "cpu")
-            jax.config.update("jax_platform_name", "cpu")
-        except Exception:  # noqa: BLE001 — jax unused unless touched
-            pass
         from ..index.share import load_index_dir
         from ..models.pipeline import AlignmentEngine
 
         index = load_index_dir(idx_dir)
         eng = AlignmentEngine(index, map_opt, cfg)
-        conn.send(("ready", -1, os.getpid()))
+        conn.send(("ready", -1, child_info()))
         while True:
             msg = conn.recv()
             if msg is None:
@@ -107,10 +92,10 @@ class DevOwnerMapper:
         from ..index.share import save_index_dir
 
         self.engine = engine
-        # one compiled batch shape, as the classic children use.
-        # Mutate in place (restored on shutdown): the engine and the
-        # Aligner share this config object, and replacing it would
-        # detach the engine from later config tuning.
+        # one compiled batch shape.  Mutate in place (restored on
+        # shutdown): the engine and the Aligner share this config
+        # object, and replacing it would detach the engine from later
+        # config tuning.
         self._saved_sbs = engine.cfg.single_batch_shape
         engine.cfg.single_batch_shape = True
         self._no_2nd_default = bool(map_opt.flag & MM_F_NO_PRINT_2ND)
@@ -127,19 +112,21 @@ class DevOwnerMapper:
         )
         self.n_procs = n_procs
         self._children: List[_Child] = []
+        self.child_info: List[dict] = []
         self._rid = 0
         self._rid_lock = threading.Lock()
         self._closed = False
-        for _ in range(n_procs):
-            parent_c, child_c = ctx.Pipe()
-            p = ctx.Process(
-                target=_worker_main,
-                args=(child_c, self._tmp, map_opt, child_cfg),
-                daemon=True,
-            )
-            p.start()
-            child_c.close()
-            self._children.append(_Child(p, parent_c))
+        with child_env():
+            for _ in range(n_procs):
+                parent_c, child_c = ctx.Pipe()
+                p = ctx.Process(
+                    target=_worker_main,
+                    args=(child_c, self._tmp, map_opt, child_cfg),
+                    daemon=True,
+                )
+                p.start()
+                child_c.close()
+                self._children.append(_Child(p, parent_c))
         atexit.register(self.shutdown)
 
     def _next_rid(self) -> int:
@@ -147,15 +134,10 @@ class DevOwnerMapper:
             self._rid += 1
             return self._rid
 
-    def wait_ready(self, timeout: float = 300.0) -> bool:
-        for child in self._children:
-            try:
-                got = child.ready_q.get(timeout=timeout)
-            except queue.Empty:
-                return False
-            if isinstance(got, Exception):
-                return False
-        return True
+    def wait_ready(self, timeout: float = 300.0) -> None:
+        """Block until every child is ready; child_info then holds
+        each child's pid and JAX platform."""
+        self.child_info = wait_children(self._children, timeout)
 
     # -- the front-end + post-chain round trip --------------------------
     def _front_end_chunk(self, codes: List[np.ndarray]):
@@ -273,12 +255,6 @@ class DevOwnerMapper:
             t.join()
 
     # -- observability ---------------------------------------------------
-    def probe_front_end(self, n: int = 10) -> list:
-        return self.engine.probe_front_end(n)
-
-    def front_end_roofline(self) -> dict:
-        return self.engine.front_end_roofline()
-
     def reset_metrics(self) -> None:
         for child in self._children:
             try:

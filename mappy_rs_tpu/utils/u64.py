@@ -1,7 +1,7 @@
-"""64-bit unsigned arithmetic as (hi, lo) uint32 pairs, for TPU.
+"""64-bit unsigned arithmetic as (hi, lo) uint32 pairs.
 
-TPUs have no fast native 64-bit integer path (XLA emulates int64 with
-int32 pairs anyway, and JAX's default x64-disabled mode truncates).
+JAX's default x64-disabled mode truncates 64-bit integers, and the
+pairs keep every device graph in 32-bit integer arithmetic.
 Minimizer hashes are up to 2k<=56 bits, so every kernel that touches
 hash keys works on explicit (hi, lo) uint32 pairs with the helpers
 below.  All shift amounts are Python ints (static under jit).

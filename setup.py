@@ -4,9 +4,9 @@ The reference ships manylinux wheels built by maturin from its Rust
 crate (SURVEY.md §2a #15); the analogue here is the C++ host runtime
 (mappy_rs_tpu/native/*.cc) compiled into the wheel as a ctypes-loaded
 shared library.  Source installs still work without this step — the
-package auto-builds via the Makefile on first use (native/__init__.py)
-— but `python -m build` / `pip wheel .` produces a binary wheel with
-the library prebuilt.
+package builds the library on first use (native/__init__.py, same
+flags) — but `python -m build` / `pip wheel .` produces a binary wheel
+with the library prebuilt.
 
 MAPPY_NATIVE_ARCH overrides -march for distributable builds (default
 "native" for local ones; use e.g. "x86-64-v3" for portable wheels).

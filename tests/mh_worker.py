@@ -2,8 +2,8 @@
 
 Launched by tests/test_multihost.py as
 ``python tests/mh_worker.py <pid> <nproc> <n_local_devices> <out.npz>
-<port>``.  Every process builds the same global inputs (test.mmi +
-the test reads), joins the distributed runtime, runs the sharded
+<port>``.  Every process builds the same global inputs (the index of
+tests/data/test.fa + its reads), joins the distributed runtime, runs the sharded
 decision step over the GLOBAL (data, index) mesh, gathers the full
 results, and process 0 writes them to ``out.npz``.  With nproc=1 this
 doubles as the single-process oracle.
@@ -58,10 +58,11 @@ assert len(jax.devices()) == nproc * n_local
 N_INDEX = 2
 mesh = make_global_mesh(N_INDEX)
 
-idx = load_or_build("/root/reference/resources/test/test.mmi")
+FA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "test.fa")
+idx = load_or_build(FA)
 opt = MapOptions()
 idx.update_map_options(opt)
-seqs = [s for _, s in read_fastx("/root/reference/resources/test/test.fa")]
+seqs = [s for _, s in read_fastx(FA)]
 B, L = 8, 512
 codes = np.full((B, L), 4, np.uint8)
 lens = np.zeros(B, np.int32)

@@ -3,8 +3,7 @@
 minimap2 has no per-read anchor cap; the device front end budgets A
 slots per read.  A pathological high-occurrence read whose hits
 exceed A must NOT be silently truncated: the host detects
-n_raw > A (downloaded on BOTH the device-backtrack and the packed
-paths) and remaps the read with a boosted budget, recovering the
+n_raw > A (downloaded with the packed anchors) and remaps the read with a boosted budget, recovering the
 unique-flank anchors that lexicographic truncation would drop.
 """
 import numpy as np
@@ -35,11 +34,9 @@ def repeat_case(tmp_path_factory):
     return str(fa), read, start - 97
 
 
-@pytest.mark.parametrize("bt", ["on", "off"])
-def test_overflow_read_remaps_with_boosted_budget(repeat_case, bt):
+def test_overflow_read_remaps_with_boosted_budget(repeat_case):
     fa, read, true_start = repeat_case
     al = mappy_rs_tpu.Aligner(fa)
-    al._engine.cfg = al._engine.cfg.replace(device_backtrack=bt)
     # let the repeat seeds through (the occurrence filter would
     # otherwise thin them before the A budget is reached)
     al._map_opt.mid_occ = 10_000

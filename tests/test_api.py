@@ -1,15 +1,10 @@
 """API contract tests — port of the reference's tests/python_test.py
 (same assertions through the new module; SURVEY.md §4 tier 2)."""
 from itertools import repeat
-from pathlib import Path
 
 import pytest
 
 import mappy_rs_tpu
-
-RESOURCES = Path("/root/reference/resources/test")
-MMI_FILE = RESOURCES / "test.mmi"
-FA_FILE = RESOURCES / "test.fa"
 
 
 def read_fasta(fh):
@@ -27,13 +22,13 @@ def read_fasta(fh):
 
 
 @pytest.fixture(scope="module")
-def al():
-    return mappy_rs_tpu.Aligner(str(MMI_FILE))
+def al(test_mmi):
+    return mappy_rs_tpu.Aligner(test_mmi)
 
 
 @pytest.fixture
-def fasta_list():
-    with open(FA_FILE) as fh:
+def fasta_list(test_fa):
+    with open(test_fa) as fh:
         seqs = [s for _, s in read_fasta(fh)]
     return [
         {"id": i, "seq": seq}
@@ -89,8 +84,8 @@ def test_property_seq_names(al):
     assert names == expected
 
 
-def test_get_seq(al):
-    with open(FA_FILE) as fh:
+def test_get_seq(al, test_fa):
+    with open(test_fa) as fh:
         seqs = {n.split()[0]: s for n, s in read_fasta(fh)}
     assert al.seq("Bacillus_subtilis") == seqs["Bacillus_subtilis"]
     assert al.seq("Bacillus_subtilis", 5, 10) == seqs["Bacillus_subtilis"][5:10]
@@ -98,8 +93,8 @@ def test_get_seq(al):
     assert al.seq("Bacillus_subtilis", 500, 600) is None
 
 
-def test_map_one(al):
-    with open(FA_FILE) as fh:
+def test_map_one(al, test_fa):
+    with open(test_fa) as fh:
         seqs = {n.split()[0]: s for n, s in read_fasta(fh)}
     mappings = al.map(seqs["Enterococcus_faecalis"], cs=True)
     assert len(mappings) == 1
@@ -132,8 +127,8 @@ def test_map_no_op(al):
     assert m[0].target_len == 101010
 
 
-def test_map_batch_without_threading(al, fasta_list):
-    al2 = mappy_rs_tpu.Aligner(str(MMI_FILE))
+def test_map_batch_without_threading(al, fasta_list, test_mmi):
+    al2 = mappy_rs_tpu.Aligner(test_mmi)
     with pytest.raises(RuntimeError) as excinfo:
         al2.map_batch(fasta_list)
     assert "Multi threading not enabled" in str(excinfo.value)
@@ -236,25 +231,25 @@ def test_no_index():
     assert "Did not create or open an index" in str(excinfo)
 
 
-def test_fasta_input_and_seq_kwarg(tmp_path):
+def test_fasta_input_and_seq_kwarg(tmp_path, test_fa):
     # building from FASTA must equal loading the prebuilt index
-    al_fa = mappy_rs_tpu.Aligner(str(FA_FILE))
+    al_fa = mappy_rs_tpu.Aligner(test_fa)
     assert al_fa.k == 15 and al_fa.w == 10 and al_fa.n_seq == 4
     # capability superset vs reference: seq= and fn_idx_out= work
-    with open(FA_FILE) as fh:
+    with open(test_fa) as fh:
         _, s = next(read_fasta(fh))
     al_seq = mappy_rs_tpu.Aligner(seq=s)
     assert al_seq.n_seq == 1
     hits = al_seq.map(s)
     assert hits and hits[0].target_start == 0
     out = tmp_path / "idx.mmi"
-    mappy_rs_tpu.Aligner(str(FA_FILE), fn_idx_out=str(out))
+    mappy_rs_tpu.Aligner(test_fa, fn_idx_out=str(out))
     al_back = mappy_rs_tpu.Aligner(str(out))
     assert al_back.n_seq == 4
 
 
-def test_mapping_str_paf_format(al):
-    with open(FA_FILE) as fh:
+def test_mapping_str_paf_format(al, test_fa):
+    with open(test_fa) as fh:
         seqs = {n.split()[0]: s for n, s in read_fasta(fh)}
     m = al.map(seqs["Bacillus_subtilis"])[0]
     fields = str(m).split("\t")
@@ -295,8 +290,8 @@ def test_mappy_module_helpers(tmp_path):
     assert recs == [("q1", "ACGT", "IIII"), ("q2", "GGGG", "!!!!")]
 
 
-def test_enable_threading_zero(al):
-    al2 = mappy_rs_tpu.Aligner(str(MMI_FILE))
+def test_enable_threading_zero(al, test_mmi):
+    al2 = mappy_rs_tpu.Aligner(test_mmi)
     al2.enable_threading(0)
     with pytest.raises(RuntimeError) as excinfo:
         al2.map_batch([{"seq": "ACGT"}])

@@ -12,7 +12,7 @@ mapping coordinates on contigs whose concatenated offset sits below,
 AT, and far above the int32 boundary, on both front ends:
   - the native CPU front end + host extension (production CPU path)
   - the device front end (fused sketch/lookup/chain graph; runs on
-    the CPU backend here, identical code path to TPU)
+    the CPU backend here, the same code path as on the GPU)
 """
 import numpy as np
 import pytest

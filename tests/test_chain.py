@@ -8,20 +8,16 @@ from mappy_rs_tpu.ops.lookup import collect_anchors_dev
 from mappy_rs_tpu.ops.sketch import sketch_compact
 from mappy_rs_tpu.utils.seqcodes import encode, read_fastx
 
-MMI = "/root/reference/resources/test/test.mmi"
-FA = "/root/reference/resources/test/test.fa"
-
-
-def test_block_chain_equals_scan_chain():
+def test_block_chain_equals_scan_chain(test_mmi, test_fa):
     import jax.numpy as jnp
 
-    idx = load_or_build(MMI)
+    idx = load_or_build(test_mmi)
     opt = MapOptions()
     idx.update_map_options(opt)
     dev = idx.device
     rng = np.random.default_rng(1)
     reads = []
-    for _, s in read_fastx(FA):
+    for _, s in read_fastx(test_fa):
         reads.append(s)
         m = list(s)
         for p_ in rng.choice(390, 25, replace=False):

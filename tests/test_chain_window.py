@@ -1,8 +1,8 @@
 """Adversarial test for the bounded chaining window (VERDICT r1 #7).
 
-The device chain kernels bound the predecessor search (Pallas: a
-lane-aligned multi-block window; XLA block formulation: [1, 2C)
-anchors back), while minimap2 scans up to max_chain_iter=5000 anchors.
+The device chain DP bounds the predecessor search (block formulation:
+[1, 2C) anchors back, C = chain_window), while minimap2 scans up to
+max_chain_iter=5000 anchors.
 
 The realistic failure mode: a deletion that skips several copies of a
 tandem repeat.  The skipped copies' ref minimizers still match the
@@ -27,7 +27,6 @@ import pytest
 import mappy_rs_tpu
 from mappy_rs_tpu import native
 from mappy_rs_tpu.ops.chain import ChainParams, chain_scores_block
-from mappy_rs_tpu.ops.chain_pallas import chain_scores_pallas
 from mappy_rs_tpu.ops.lookup import collect_anchors_dev
 from mappy_rs_tpu.ops.sketch import sketch_compact
 from mappy_rs_tpu.utils.seqcodes import encode
@@ -104,18 +103,6 @@ def test_narrow_window_loses_wide_recovers(repeat_deletion_case):
     assert f_wide >= oracle_sc, (f_wide, oracle_sc)
 
 
-def test_pallas_multiblock_window_recovers(repeat_deletion_case):
-    idx, _genome, read = repeat_deletion_case
-    oracle_sc, _, params = _oracle_best(idx, read)
-    anchors = _device_anchors(idx, read)
-    f1, _ = chain_scores_pallas(anchors, params, 128)
-    f4, _ = chain_scores_pallas(anchors, params, 512)
-    n1 = int(jnp.max(jnp.where(anchors["valid"], f1, -1)))
-    n4 = int(jnp.max(jnp.where(anchors["valid"], f4, -1)))
-    assert n1 < oracle_sc, (n1, oracle_sc)
-    assert n4 >= oracle_sc, (n4, oracle_sc)
-
-
 def test_mapping_with_widened_window_spans_deletion(repeat_deletion_case):
     """End-to-end: with the widened window the read maps as ONE region
     spanning the deletion (a ~360bp D run in the CIGAR); config knobs
@@ -123,7 +110,6 @@ def test_mapping_with_widened_window_spans_deletion(repeat_deletion_case):
     idx, genome, read = repeat_deletion_case
     al = mappy_rs_tpu.Aligner(seq=genome, preset="map-ont")
     al._engine.cfg.chain_window = 256
-    al._engine.cfg.pallas_chain_window = 512
     al._engine.opt.mid_occ = MID_OCC
     hits = al.map(read)
     assert hits

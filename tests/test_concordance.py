@@ -7,8 +7,8 @@ available substitute is cross-checking the two INDEPENDENTLY
 IMPLEMENTED aligner paths in this package against each other on a
 realistic mixed workload:
 
-  * device front end — JAX/Pallas: mask-formulated sketch, binary-search
-    seed lookup, windowed max-plus chain kernel (ops/).
+  * device front end — JAX: mask-formulated sketch, hash-probe seed
+    lookup, block max-plus chain DP (ops/).
   * CPU front end — scalar C++: rolling sketch, lower_bound lookup,
     minimap2-style O(n*max_iter) chain DP (native/front_end.cc).
 

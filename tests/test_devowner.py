@@ -68,7 +68,6 @@ def test_devowner_identical_and_contract(genome, payload):
 
     al2 = Aligner(seq=g, preset="map-ont")
     al2._config.worker_processes = 2
-    al2._config.topology = "device_owner"
     al2._config.device_batch_size = 32
     al2._config.proc_chunk = 24
     al2.enable_threading(4)
@@ -76,6 +75,8 @@ def test_devowner_identical_and_contract(genome, payload):
     from mappy_rs_tpu.runtime.devowner import DevOwnerMapper
 
     assert isinstance(al2._procs, DevOwnerMapper)
+    # the children never open the accelerator
+    assert [c["platform"] for c in al2._procs.child_info] == ["cpu"] * 2
     try:
         al2.warmup([payload[0]["seq"]])
         got = {}

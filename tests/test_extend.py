@@ -150,3 +150,20 @@ def test_cs_md_generation():
     cb2 = encode("ACGTGGACGTAA")
     assert gen_cs(cig2, ca, cb2) == ":4-gg:6"
     assert gen_md(cig2, ca, cb2) == "4^GG6"
+
+
+def test_device_dl_equals_host_extension():
+    """extension_backend="device_dl" (XLA banded DP on the device, host
+    walk) gives the C++ host engine's results job for job."""
+    from mappy_rs_tpu import Aligner, native
+
+    if not native.available():
+        pytest.skip("native lib unavailable")
+    import chip_smoke
+
+    rng = np.random.default_rng(4)
+    genome = chip_smoke.make_genome(rng, 200_000)
+    reads, _ = chip_smoke.simulate_reads(rng, genome, 48, 1000)
+    al = Aligner(seq=genome, preset="map-ont")
+    res = chip_smoke.phase_extension(al, reads, 128)
+    assert res["jobs"] >= 96 and res["differing"] == 0

@@ -4,10 +4,11 @@ Round 1/2 reviews flagged multi-host as "design-only".  This test
 actually runs it: two OS processes (4 CPU devices each) join a
 jax.distributed runtime over the Gloo fabric, build the global
 (data=4, index=2) mesh with "index" packed inside each process (the
-DCN-zero layout from parallel/mesh.make_mesh), execute the sharded
+host-local layout from parallel/mesh.make_mesh), execute the sharded
 decision step, and the gathered results must be bitwise-identical to
-a single-process 8-device run of the same step.  On a TPU pod the
-identical code paths ride ICI + DCN.
+a single-process 8-device run of the same step.  On GPU hosts the
+identical code paths ride NVLink inside a host and the network
+between hosts.
 """
 import os
 import socket

@@ -1,4 +1,7 @@
-"""Native C++ runtime vs python fallbacks (traceback, encode)."""
+"""Native C++ runtime vs python fallbacks (traceback, encode), and the
+loader's build rule."""
+import os
+
 import numpy as np
 import pytest
 
@@ -185,3 +188,37 @@ def test_native_banded_matches_device_path():
                     dirs[:, i, :], int(ql[i]), int(tl[i]), W, cell[0], cell[1]
                 )
                 assert ops == exp, f"job {i} cigar"
+
+
+def test_loader_rebuilds_stale_library(tmp_path, monkeypatch):
+    """ensure_built compiles when the library is absent or older than a
+    source, and leaves a fresh one alone."""
+    so = str(tmp_path / "lib.so")
+    built = []
+    monkeypatch.setattr(
+        native, "build", lambda path: (built.append(path),
+                                       open(path, "w").close())
+    )
+    native.ensure_built(so)  # absent
+    assert built == [so]
+    native.ensure_built(so)  # fresh
+    assert built == [so]
+    newest = max(
+        os.path.getmtime(os.path.join(native._DIR, s))
+        for s in native.SOURCES
+    )
+    os.utime(so, (newest - 10, newest - 10))  # older than the sources
+    assert native.is_stale(so)
+    native.ensure_built(so)
+    assert built == [so, so]
+
+
+def test_compile_command_uses_cxx_and_arch(monkeypatch):
+    monkeypatch.setenv("CXX", "my-c++")
+    monkeypatch.setenv("MAPPY_NATIVE_ARCH", "x86-64-v3")
+    cmd = native.compile_command("/x/lib.so")
+    assert cmd[0] == "my-c++" and "-march=x86-64-v3" in cmd
+    assert cmd[-2:] == ["-o", "/x/lib.so"]
+    assert [os.path.basename(c) for c in cmd if c.endswith(".cc")] == list(
+        native.SOURCES
+    )

@@ -1,5 +1,5 @@
-"""Multi-chip sharding: the full sharded map step on the virtual CPU
-mesh (the driver's dryrun exercises the same path)."""
+"""Multi-device sharding: the full sharded map step on the virtual CPU
+mesh (__graft_entry__.dryrun_multichip exercises the same path)."""
 import numpy as np
 import pytest
 
@@ -10,11 +10,11 @@ def test_sharded_map_step_8dev():
     g.dryrun_multichip(8)
 
 
-def test_index_key_range_sharding_roundtrip():
+def test_index_key_range_sharding_roundtrip(test_mmi):
     from mappy_rs_tpu.index.build import load_or_build
     from mappy_rs_tpu.parallel.mesh import shard_index_by_key_range
 
-    idx = load_or_build("/root/reference/resources/test/test.mmi")
+    idx = load_or_build(test_mmi)
     sh = shard_index_by_key_range(idx, 4)
     # every key appears in exactly one shard, in order
     keys = []
@@ -48,13 +48,13 @@ def test_index_key_range_sharding_roundtrip():
     assert (np.diff(sh["rid2shard"]) >= 0).all()
 
 
-def test_map_batch_positions_sharded():
+def test_map_batch_positions_sharded(test_mmi, test_fa):
     import mappy_rs_tpu
     from mappy_rs_tpu.utils.seqcodes import read_fastx
 
-    al = mappy_rs_tpu.Aligner("/root/reference/resources/test/test.mmi")
+    al = mappy_rs_tpu.Aligner(test_mmi)
     al.enable_sharding(n_data=4, n_index=2)
-    seqs = dict(read_fastx("/root/reference/resources/test/test.fa"))
+    seqs = dict(read_fastx(test_fa))
     comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
     reads = list(seqs.values()) + [
         "".join(comp[c] for c in reversed(seqs["Bacillus_subtilis"]))
@@ -167,7 +167,7 @@ def test_map_batch_mesh_sharded_index_identical_mappings():
     assert sum(1 for r in single if r) >= 19
 
 
-def test_readfish_microbatch_decisions():
+def test_readfish_microbatch_decisions(test_mmi, test_fa):
     """Adaptive-sampling shape (BASELINE config 5): a stream of
     latency-bound MICRO-batches of 350-450bp read prefixes through the
     sharded decision mode — every chunk must be called to the right
@@ -179,9 +179,9 @@ def test_readfish_microbatch_decisions():
     import mappy_rs_tpu
     from mappy_rs_tpu.utils.seqcodes import read_fastx
 
-    al = mappy_rs_tpu.Aligner("/root/reference/resources/test/test.mmi")
+    al = mappy_rs_tpu.Aligner(test_mmi)
     al.enable_sharding(n_data=4, n_index=2)
-    seqs = dict(read_fastx("/root/reference/resources/test/test.fa"))
+    seqs = dict(read_fastx(test_fa))
     names = list(seqs)
     rng = np.random.default_rng(3)
     comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
@@ -205,7 +205,7 @@ def test_readfish_microbatch_decisions():
     assert len(al._sharded_steps) == 1  # one L bucket -> one compile
 
 
-def test_sharding_refuses_single_contig_over_int32():
+def test_sharding_refuses_single_contig_over_int32(test_mmi):
     """A SINGLE contig past 2^31 bp must refuse loudly (per-contig
     int32 device coordinates would wrap; minimap2 has the same cap).
     Multi-contig references past 2^31 bp TOTAL are supported — the
@@ -214,7 +214,7 @@ def test_sharding_refuses_single_contig_over_int32():
     from mappy_rs_tpu.index.build import load_or_build
     from mappy_rs_tpu.parallel.mesh import shard_index_by_key_range
 
-    idx = load_or_build("/root/reference/resources/test/test.mmi")
+    idx = load_or_build(test_mmi)
     fake_lens = idx.seq_lens.copy().astype(np.int64)
     fake_lens[0] = 2**31
     object.__setattr__(idx, "seq_lens", fake_lens)

@@ -7,8 +7,6 @@ import pytest
 import mappy_rs_tpu
 from mappy_rs_tpu.utils.seqcodes import read_fastx
 
-FA = "/root/reference/resources/test/test.fa"
-MMI = "/root/reference/resources/test/test.mmi"
 
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A", "N": "N"}
 
@@ -18,13 +16,13 @@ def revcomp(s):
 
 
 @pytest.fixture(scope="module")
-def al():
-    return mappy_rs_tpu.Aligner(MMI)
+def al(test_mmi):
+    return mappy_rs_tpu.Aligner(test_mmi)
 
 
 @pytest.fixture(scope="module")
-def seqs():
-    return dict(read_fastx(FA))
+def seqs(test_fa):
+    return dict(read_fastx(test_fa))
 
 
 def test_each_contig_maps_to_itself(al, seqs):

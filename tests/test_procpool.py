@@ -1,9 +1,11 @@
-"""Multi-process mapping runtime (runtime/procpool.py).
+"""Multi-process CPU mapping runtime (runtime/procpool.py).
 
-The streaming contract must hold unchanged when enable_threading's
-workers proxy to child processes, and a read's result must be
-bit-identical to the single-process path no matter which child maps
-it (children run the unmodified engine on the mmap-shared index).
+With the CPU front end, enable_threading's workers proxy to child
+processes that each run the full CPU pipeline.  The streaming contract
+must hold unchanged, and a read's result must be bit-identical to the
+single-process CPU path no matter which child maps it (children run
+the unmodified engine on the mmap-shared index).  Worker-start
+failures raise instead of falling back to threads.
 """
 import numpy as np
 import pytest
@@ -33,9 +35,15 @@ def payload(genome):
     return out
 
 
-def test_procs_map_batch_identical_and_contract(genome, payload):
-    # reference results: direct single-process mapping
+def _cpu_aligner(genome):
     al = Aligner(seq=genome, preset="map-ont")
+    al._config.front_end_backend = "cpu"
+    return al
+
+
+def test_procs_map_batch_identical_and_contract(genome, payload):
+    # reference results: direct single-process CPU mapping
+    al = _cpu_aligner(genome)
     direct = [
         al._to_mappings(r)
         for r in al._engine.map_batch(
@@ -43,14 +51,15 @@ def test_procs_map_batch_identical_and_contract(genome, payload):
         )
     ]
 
-    al2 = Aligner(seq=genome, preset="map-ont")
+    al2 = _cpu_aligner(genome)
     al2._config.worker_processes = 1
-    # small device batch: the child compiles a [32, L] graph instead of
-    # the production [256, L] one (CPU-mesh compile time, not coverage)
-    al2._config.device_batch_size = 32
     al2._config.proc_chunk = 48
     al2.enable_threading(2)
-    assert al2._procs is not None, "worker processes failed to start"
+    from mappy_rs_tpu.runtime.procpool import ProcMapper
+
+    assert isinstance(al2._procs, ProcMapper)
+    # the children never open the accelerator
+    assert [c["platform"] for c in al2._procs.child_info] == ["cpu"]
     try:
         al2.warmup([payload[0]["seq"]])  # broadcast warm path
         got = {}
@@ -75,7 +84,7 @@ def test_procs_map_batch_identical_and_contract(genome, payload):
 
 def test_procs_error_contract(genome, payload):
     """Producer-side error texts are raised before any child work."""
-    al = Aligner(seq=genome, preset="map-ont")
+    al = _cpu_aligner(genome)
     al._config.worker_processes = 1
     al.enable_threading(1)
     try:
@@ -84,3 +93,26 @@ def test_procs_error_contract(genome, payload):
                 pass
     finally:
         al.enable_threading(0)
+
+
+@pytest.mark.parametrize("front_end", ["cpu", "device"])
+def test_worker_start_failure_raises(genome, monkeypatch, front_end):
+    """Children that cannot load the shared index fail to start; the
+    failure surfaces as RuntimeError and leaves no pool behind."""
+    import mappy_rs_tpu.index.share as share
+
+    al = Aligner(seq=genome[:20_000], preset="map-ont")
+    al._config.front_end_backend = front_end
+    al._config.worker_processes = 1
+    monkeypatch.setattr(share, "save_index_dir", lambda index, d: None)
+    with pytest.raises(RuntimeError, match="failed to start"):
+        al.enable_threading(2)
+    assert al._procs is None and al._pool is None
+
+
+def test_procmapper_refuses_device_front_end(genome):
+    from mappy_rs_tpu.runtime.procpool import ProcMapper
+
+    al = Aligner(seq=genome[:20_000], preset="map-ont")
+    with pytest.raises(ValueError, match="CPU front end"):
+        ProcMapper(1, al._index, al._map_opt, al._config)

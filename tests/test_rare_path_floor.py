@@ -4,8 +4,7 @@ The fused C++ post-chain serves the common case; zdrop-split
 chimeras / inversions / overflows fall back to the stage-by-stage
 Python path.  A batch that is ~100% fallback reads must (a) stream
 through map_batch with results bit-identical to per-read map(), and
-(b) not collapse — the floor is measured and printed (the real-TPU
-number lives in ROUND5.md via tpu_trials/prof_rare_floor.py).
+(b) not collapse — the floor is measured and printed.
 """
 import time
 

@@ -9,18 +9,14 @@ import pytest
 import mappy_rs_tpu
 from mappy_rs_tpu.utils.seqcodes import read_fastx
 
-MMI = "/root/reference/resources/test/test.mmi"
-FA = "/root/reference/resources/test/test.fa"
-
-
 @pytest.fixture(scope="module")
-def payload():
-    seqs = [s for _, s in read_fastx(FA)]
+def payload(test_fa):
+    seqs = [s for _, s in read_fastx(test_fa)]
     return [{"i": i, "seq": seqs[i % 4]} for i in range(200)]
 
 
-def test_abandoned_iterator_does_not_wedge_pool(payload):
-    al = mappy_rs_tpu.Aligner(MMI)
+def test_abandoned_iterator_does_not_wedge_pool(payload, test_mmi):
+    al = mappy_rs_tpu.Aligner(test_mmi)
     al.enable_threading(2)
     it = al.map_batch(payload)
     next(it)  # consume one result, then abandon
@@ -31,8 +27,8 @@ def test_abandoned_iterator_does_not_wedge_pool(payload):
     assert n == len(payload)
 
 
-def test_partially_consumed_then_new_batch(payload):
-    al = mappy_rs_tpu.Aligner(MMI)
+def test_partially_consumed_then_new_batch(payload, test_mmi):
+    al = mappy_rs_tpu.Aligner(test_mmi)
     al.enable_threading(2)
     it1 = al.map_batch(payload)
     got1 = [next(it1) for _ in range(5)]
@@ -45,16 +41,16 @@ def test_partially_consumed_then_new_batch(payload):
         assert n == 50
 
 
-def test_many_sequential_batches(payload):
-    al = mappy_rs_tpu.Aligner(MMI)
+def test_many_sequential_batches(payload, test_mmi):
+    al = mappy_rs_tpu.Aligner(test_mmi)
     al.enable_threading(3)
     for k in range(6):
         n = sum(1 for _ in al.map_batch(payload[: 20 + k]))
         assert n == 20 + k
 
 
-def test_pool_restart_between_batches(payload):
-    al = mappy_rs_tpu.Aligner(MMI)
+def test_pool_restart_between_batches(payload, test_mmi):
+    al = mappy_rs_tpu.Aligner(test_mmi)
     for n_threads in (1, 3, 2):
         al.enable_threading(n_threads)
         n = sum(1 for _ in al.map_batch(payload[:30]))

@@ -6,7 +6,6 @@ from mappy_rs_tpu.index.sketch_host import sketch_host
 from mappy_rs_tpu.ops.sketch import sketch, sketch_compact
 from mappy_rs_tpu.utils.seqcodes import encode, read_fastx
 
-FA = "/root/reference/resources/test/test.fa"
 
 
 def _batchify(tests, L=None):
@@ -42,9 +41,9 @@ def _compare(tests, k, w):
 
 
 @pytest.mark.parametrize("k,w", [(15, 10), (19, 19), (21, 11)])
-def test_sketch_vs_oracle_random(k, w):
+def test_sketch_vs_oracle_random(k, w, test_fa):
     rng = np.random.default_rng(42)
-    tests = [s for _, s in read_fastx(FA)]
+    tests = [s for _, s in read_fastx(test_fa)]
     for _ in range(30):
         n = int(rng.integers(k, 150))
         tests.append(
@@ -56,10 +55,10 @@ def test_sketch_vs_oracle_random(k, w):
     _compare(tests, k, w)
 
 
-def test_sketch_compact_matches_mask():
+def test_sketch_compact_matches_mask(test_fa):
     import jax.numpy as jnp
 
-    tests = [s for _, s in read_fastx(FA)]
+    tests = [s for _, s in read_fastx(test_fa)]
     codes, lens = _batchify(tests)
     full = sketch(jnp.asarray(codes), jnp.asarray(lens), 15, 10)
     comp = sketch_compact(jnp.asarray(codes), jnp.asarray(lens), 15, 10, 128)

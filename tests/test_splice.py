@@ -3,7 +3,7 @@
 The reference supports spliced mapping through ``mm_set_opt("splice")``
 (/root/reference/src/lib.rs:334-337 forwarding presets verbatim to
 minimap2).  This build's splice stack: is_splice chaining branch
-(ops/chain.py / chain_pallas.py / native front_end.cc), intron-state
+(ops/chain.py / native front_end.cc), intron-state
 extension DP (ops/splice.py oracle == native splice_align_batch), and
 N-aware CIGAR/cs/MD/stats (ops/cigar.py, native mappy_native.cc).
 """

@@ -1,8 +1,8 @@
 """Cross-engine concordance sweep: device vs CPU front end per preset.
 
-The two front ends share no code or algorithmic structure (JAX/Pallas
-mask-formulated sketch + binary-search lookup + windowed max-plus
-chain vs scalar C++ rolling sketch + lower_bound + mm_chain_dp), so
+The two front ends share no code or algorithmic structure (JAX
+mask-formulated sketch + hash-probe lookup + block max-plus chain vs
+scalar C++ rolling sketch + lower_bound + mm_chain_dp), so
 full-hit-tuple agreement on a realistic workload is the in-environment
 substitute for a mappy oracle (the image is sealed; no external
 minimap2 exists).  See tests/test_concordance.py for the rationale,
@@ -76,9 +76,11 @@ def simulate(rng, genome, n, lengths, errs):
 
 
 def _tuples(regs, idx):
+    from mappy_rs_tpu.ops.cigar import unpack_ops
+
     return [
         (r.rid, r.rs, r.re, r.qs, r.qe, r.rev, idx.seq_names[r.rid],
-         tuple(np.asarray(r.cigar).tolist())
+         tuple(map(tuple, unpack_ops(r.cigar)))
          if r.cigar is not None else (),
          r.nm, r.mapq, r.parent == r.id)
         for r in regs
@@ -108,7 +110,15 @@ def run_preset(preset: str, n_reads: int, seed: int = 21):
     idx = al_dev._engine.index
     out_dev = al_dev._engine.map_batch(reads)
     out_cpu = al_cpu._engine.map_batch(reads)
+    return {"preset": preset, **compare(out_dev, out_cpu, idx)}
 
+
+def compare(out_dev, out_cpu, idx, max_diffs: int = 5) -> dict:
+    """Full-hit-tuple agreement between two per-read Region lists of
+    the same reads: counts of reads both sides map, reads only one
+    side maps, equal primary coordinates (rid, r_st, r_en, q_st, q_en,
+    strand) and equal full tuple lists; the first `max_diffs`
+    differing reads as (read index, first tuple A, first tuple B)."""
     full = coords = both = only_one = 0
     diffs = []
     for i, (rd, rc) in enumerate(zip(out_dev, out_cpu)):
@@ -127,15 +137,15 @@ def run_preset(preset: str, n_reads: int, seed: int = 21):
         else:
             diffs.append((i, td[:1], tc[:1]))
     return {
-        "preset": preset,
-        "n_reads": n_reads,
+        "n_reads": len(out_dev),
         "both_mapped": both,
         "one_side_only": only_one,
         "full": full,
         "coords": coords,
         "full_pct": 100.0 * full / max(both, 1),
         "coords_pct": 100.0 * coords / max(both, 1),
-        "diffs": diffs[:5],
+        "n_diffs": len(diffs),
+        "diffs": diffs[:max_diffs],
     }
 
 
@@ -147,7 +157,7 @@ def main():
     buf = io.StringIO()
     buf.write(
         "# CONCORDANCE — device vs CPU front end, full hit tuples\n\n"
-        "Two independently implemented aligner paths (JAX/Pallas device"
+        "Two independently implemented aligner paths (JAX device"
         " front end vs\nscalar C++ native front end) mapped the same"
         " reads; a hit tuple is\n(ctg, r_st, r_en, q_st, q_en, strand,"
         " CIGAR, NM, mapq, primary).\nWorkload: 150kb genome with an"

@@ -1,11 +1,13 @@
 #!/usr/bin/env python
-"""Device-index HBM budget calculator (VERDICT r4 item 5).
+"""Device-index memory budget calculator.
 
 Computes the exact per-array device footprint of the minimizer index
 from the layout in index/index.py _build_device (hash-probe mode), for
 a given genome size / w / k, and reports whether a replicated copy
-fits a v5e chip (16 GB HBM) or how many index shards (`enable_mesh
-n_index`, parallel/mesh.py contig-range shards) are needed.
+fits one card or how many index shards (`enable_mesh n_index`,
+parallel/mesh.py key-range shards) are needed.  The card's memory is
+``memory_stats()["bytes_limit"]`` of the first JAX device when an
+accelerator is present, else the H100's 80 GB (NVIDIA data sheet).
 
 Array layout (hash mode, eff <= 31 — always true for k=15, 30-bit
 keys):
@@ -22,8 +24,24 @@ keys collapse harder).  Both bounds are reported.
 """
 import sys
 
-V5E_HBM = 16e9
+H100_HBM = 80e9  # NVIDIA H100 SXM data sheet
 HBM_HEADROOM = 0.9  # leave 10% for activations/compile scratch
+
+
+def card_bytes() -> float:
+    """Usable device memory of the card this process sees, or the
+    H100's data-sheet size when JAX finds no accelerator."""
+    try:
+        import jax
+
+        dev = jax.devices()[0]
+        if dev.platform != "cpu":
+            limit = (dev.memory_stats() or {}).get("bytes_limit")
+            if limit:
+                return float(limit)
+    except (ImportError, RuntimeError):
+        pass
+    return H100_HBM
 
 
 def pow2_at_least(x: int) -> int:
@@ -58,6 +76,7 @@ def budget(genome_bp: float, w: int = 10, k: int = 15,
 def main():
     import json
 
+    cap = card_bytes()
     rows = []
     for label, bp, ratios in (
         ("32Mbp bench", 32e6, (0.695,)),
@@ -67,7 +86,7 @@ def main():
         for r in ratios:
             b = budget(bp, key_ratio=r)
             shards = 1
-            while b["total_GB"] * 1e9 / shards > V5E_HBM * HBM_HEADROOM:
+            while b["total_GB"] * 1e9 / shards > cap * HBM_HEADROOM:
                 shards += 1
             rows.append((label, r, b, shards))
             print(
@@ -76,7 +95,7 @@ def main():
                 f"T={b['T_M']:.0f}M | offcnt {b['offcnt_GB']:.2f} + "
                 f"pos_rp {b['pos_rp_GB']:.2f} + hash {b['hash_GB']:.2f} "
                 f"= {b['total_GB']:.2f} GB -> "
-                f"{'fits 1 chip' if shards == 1 else f'{shards} index shards'}"
+                f"{'fits 1 card' if shards == 1 else f'{shards} index shards'}"
             )
     if "--json" in sys.argv:
         print(json.dumps([
